@@ -3,7 +3,7 @@
 Run:  python examples/galaxy_demo.py [--n 20000] [--steps 200] [--method fmm]
 
 Produces examples/galaxy_demo.png (before/after panels) and prints energy
-drift. Works on TPU or CPU.
+drift. Works on a GPU or the CPU.
 """
 
 import argparse
@@ -15,8 +15,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import jax
 import numpy as np
 
-import nbody_tpu as nb
-from nbody_tpu.models import spiral_galaxy
+import nbody_jax as nb
+from nbody_jax.models import spiral_galaxy
 
 
 def main():

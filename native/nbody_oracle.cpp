@@ -1,12 +1,12 @@
-// Native C++/OpenMP oracle for the TPU N-body engine.
+// Native C++/OpenMP oracle for the nbody_jax N-body engine.
 //
 // Role: an independent, non-JAX implementation of the softened pairwise
 // force law and the Hilbert key, used by the test harness as a
 // cross-language ground truth (the reference suite's native compute path —
-// methods.cpp:7-136 — re-expressed for the oracle role; the TPU engine's
+// methods.cpp:7-136 — re-expressed for the oracle role; the engine's
 // hot path lives in Pallas/XLA, not here).
 //
-// Exposed C ABI (see nbody_tpu/utils/native.py for the ctypes binding):
+// Exposed C ABI (see nbody_jax/utils/native.py for the ctypes binding):
 //   nbody_brute_force(positions, masses, n, dim, G, softening, out_forces)
 //   nbody_hilbert_keys(coords_u32, n, dim, bits, out_keys)
 //

@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from nbody_tpu import (accuracy_percentage, max_relative_error,
+from nbody_jax import (accuracy_percentage, max_relative_error,
                        percentile_relative_error)
 
 

@@ -3,13 +3,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nbody_tpu import (
+from nbody_jax import (
     GravityConfig,
     brute_force_blocked,
     brute_force_direct,
     random_system,
 )
-from nbody_tpu.ops.brute_force import brute_force_blocked_jit
+from nbody_jax.ops.brute_force import brute_force_blocked_jit
 
 
 def numpy_oracle(pos, mass, G, softening):
@@ -89,3 +89,31 @@ def test_coincident_bodies_guarded(rng_key):
     # Bodies 0 and 1 only feel body 2.
     np.testing.assert_allclose(f[0], f[1])
     np.testing.assert_allclose(f[0], [1.0 / 16.0, 0.0], atol=1e-14)
+
+
+@pytest.mark.parametrize("t,block", [(37, 16), (64, 64), (5, 128)])
+def test_accel_rows_blocked_matches_unblocked(rng_key, t, block):
+    """The ring's bounded-memory engine equals the one-tile row sweep,
+    including target counts that do not divide the block."""
+    from nbody_jax.ops.brute_force import _accel_rows, accel_rows_blocked
+    sys = random_system(rng_key, t + 90, dim=3, dtype=jnp.float64)
+    tp, sp, sm = sys.positions[:t], sys.positions[t:], sys.masses[t:]
+    np.testing.assert_allclose(
+        np.asarray(accel_rows_blocked(tp, sp, sm, 0.0, block=block)),
+        np.asarray(_accel_rows(tp, sp, sm, 0.0)), rtol=1e-12)
+
+
+@pytest.mark.parametrize("t,block", [(37, 16), (40, 64)])
+def test_accel_rows_sym_blocked_matches_unblocked(rng_key, t, block):
+    """Both outputs of the blocked Newton-3 engine (target rows and the
+    sources' share, summed over target blocks) equal the one-tile sweep;
+    zero-mass padding targets add nothing to the sources' share."""
+    from nbody_jax.ops.brute_force import (_accel_rows_sym,
+                                           accel_rows_sym_blocked)
+    sys = random_system(rng_key, t + 70, dim=2, dtype=jnp.float64)
+    tp, tm = sys.positions[:t], sys.masses[:t]
+    sp, sm = sys.positions[t:], sys.masses[t:]
+    got = accel_rows_sym_blocked(tp, tm, sp, sm, 0.0, block=block)
+    want = _accel_rows_sym(tp, tm, sp, sm, 0.0)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(np.asarray(g), np.asarray(w), rtol=1e-10)

@@ -5,11 +5,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nbody_tpu import GravityConfig, random_system
-from nbody_tpu.ops.brute_force import brute_force_direct
-from nbody_tpu.ops.bvh import build_bvh, bvh_accel_sorted, bvh_forces
-from nbody_tpu.ops.keys import MAX_BITS
-from nbody_tpu.utils.accuracy import scale_normalized_error
+from nbody_jax import GravityConfig, random_system
+from nbody_jax.ops.brute_force import brute_force_direct
+from nbody_jax.ops.bvh import build_bvh, bvh_accel_sorted, bvh_forces
+from nbody_jax.ops.keys import MAX_BITS
+from nbody_jax.utils.accuracy import scale_normalized_error
 
 
 def make_tree(rng_key, n, dim):

@@ -15,9 +15,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import nbody_tpu as nb
-from nbody_tpu.ops.bvh import MAX_BITS, build_bvh
-from nbody_tpu.ops.grid_tree import _quad_pairs
+import nbody_jax as nb
+from nbody_jax.ops.bvh import MAX_BITS, build_bvh
+from nbody_jax.ops.grid_tree import _quad_pairs
 
 
 def _oracle_node_stats(tree, dim):

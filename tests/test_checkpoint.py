@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nbody_tpu import random_system
-from nbody_tpu import checkpoint as C
+from nbody_jax import random_system
+from nbody_jax import checkpoint as C
 
 
 @pytest.mark.parametrize("use_orbax", [False] +

@@ -6,13 +6,13 @@ memory/padding, not accuracy)."""
 
 import jax.numpy as jnp
 
-from nbody_tpu import GravityConfig
-from nbody_tpu.models import plummer_sphere
-from nbody_tpu.ops.brute_force import brute_force_direct
-from nbody_tpu.ops.bvh import bvh_forces
-from nbody_tpu.ops.fmm import fmm_forces
-from nbody_tpu.ops.grid_tree import barnes_hut_grid, compute_capacity, auto_leaf_level
-from nbody_tpu.utils.accuracy import scale_normalized_error
+from nbody_jax import GravityConfig
+from nbody_jax.models import plummer_sphere
+from nbody_jax.ops.brute_force import brute_force_direct
+from nbody_jax.ops.bvh import bvh_forces
+from nbody_jax.ops.fmm import fmm_forces
+from nbody_jax.ops.grid_tree import barnes_hut_grid, compute_capacity, auto_leaf_level
+from nbody_jax.utils.accuracy import scale_normalized_error
 
 import pytest
 
@@ -86,7 +86,7 @@ def test_skewed_small_capacity_takes_sparse_fallback(rng_key):
     ~150× at the θ=0.25 leaf level — the dense layout there is a ~595 GB
     near tensor (OOM'd the CPU backend before the skew trigger existed).
     layout="auto" must answer via the sparse path instead."""
-    from nbody_tpu.ops.grid_tree import dense_layout_degenerate
+    from nbody_jax.ops.grid_tree import dense_layout_degenerate
 
     pos, mass = _clustered_system(rng_key, 4_000, frac=0.6, dim=2)
     cfg = GravityConfig(G=1.0, softening=1e-4)

@@ -9,8 +9,8 @@ import pytest
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 
-from nbody_tpu import GravityConfig, random_system
-from nbody_tpu.ops.brute_force import brute_force_direct
+from nbody_jax import GravityConfig, random_system
+from nbody_jax.ops.brute_force import brute_force_direct
 
 
 @pytest.mark.parametrize("name", [
@@ -30,13 +30,6 @@ def test_adapters_jit_and_match(rng_key, name):
     # Loose gate: same force law, approximate methods allowed their error.
     assert np.abs(f - want).max() / scale < 5e-2
 
-    # Tiny dispatch budget keeps the differenced K_hi scan short on CPU;
-    # the estimator must still return a positive marginal per-step time
-    # and an effective (differenced) step count >= 1.
-    orig = dsb.DISPATCH_BUDGET_S
-    try:
-        dsb.DISPATCH_BUDGET_S = 0.05
-        t, k = dsb.measure(name, sys_, cfg, steps=2)
-    finally:
-        dsb.DISPATCH_BUDGET_S = orig
-    assert t > 0 and k >= 1
+    # The timer returns a positive per-step time for the scan it ran.
+    t, k = dsb.measure(name, sys_, cfg, steps=2)
+    assert t > 0 and k == 2

@@ -7,9 +7,9 @@ import jax
 import numpy as np
 import pytest
 
-from nbody_tpu import GravityConfig, random_system
-from nbody_tpu.bench import analysis, registry
-from nbody_tpu.bench.harness import (
+from nbody_jax import GravityConfig, random_system
+from nbody_jax.bench import analysis, registry
+from nbody_jax.bench.harness import (
     MethodResult,
     format_time_s,
     get_run_id,
@@ -17,16 +17,16 @@ from nbody_tpu.bench.harness import (
     safely_execute,
     Tee,
 )
-from nbody_tpu.cli import main as cli_main
+from nbody_jax.cli import main as cli_main
 
 
 def test_registry_tiers():
-    methods = registry.methods_for_tiers("a", include_tpu_only=False)
+    methods = registry.methods_for_tiers("a", include_gpu_only=False)
     names = {m.name for m in methods}
     assert "BruteForce_JNP" in names
     assert "BruteForce_Ring" in names
-    assert "BruteForce_Pallas" not in names  # tpu_only filtered on CPU
-    assert registry.methods_for_tiers("", include_tpu_only=False) == []
+    assert "BruteForce_Pallas" not in names  # gpu_only filtered on CPU
+    assert registry.methods_for_tiers("", include_gpu_only=False) == []
 
 
 def test_safely_execute_contains_failure(capsys):
@@ -53,7 +53,7 @@ def test_run_id_format():
 
 def test_run_benchmark_files(rng_key, tmp_path):
     system = random_system(rng_key, 128, dim=2)
-    methods = registry.methods_for_tiers("a", include_tpu_only=False)
+    methods = registry.methods_for_tiers("a", include_gpu_only=False)
     results = run_benchmark(system, methods, compute_accuracy=True,
                             run_id="test01", results_dir=str(tmp_path))
     assert all(r.time_s >= 0 for r in results)
@@ -94,7 +94,7 @@ def test_cli_brute_gate(capsys, monkeypatch):
 
 def test_analysis_roundtrip(rng_key, tmp_path):
     system = random_system(rng_key, 64, dim=2)
-    methods = registry.methods_for_tiers("a", include_tpu_only=False)
+    methods = registry.methods_for_tiers("a", include_gpu_only=False)
     run_benchmark(system, methods, compute_accuracy=False, run_id="agg01",
                   results_dir=str(tmp_path))
     run_benchmark(system, methods, compute_accuracy=False, run_id="agg02",
@@ -127,7 +127,7 @@ def test_cli_steps_simulation(capsys):
 
 
 def test_sweep_quick(tmp_path):
-    from nbody_tpu.bench.sweep import run_sweep
+    from nbody_jax.bench.sweep import run_sweep
     results = run_sweep(sizes=(64,), accuracy_sizes=(64,), dims=(2,),
                         tiers="a", results_dir=str(tmp_path), warmup=0)
     # 2 configs (acc off/on) x registered CPU brute methods.
@@ -136,9 +136,9 @@ def test_sweep_quick(tmp_path):
 
 
 def test_sweep_chunked_cli(tmp_path):
-    """The per-config chunk flags used by tools/run_full_sweep.py: explicit
+    """The sweep's per-config chunk flags (one config per process): explicit
     --sizes/--dims/--accuracy/--run-id must produce the named CSV."""
-    from nbody_tpu.bench.sweep import main as sweep_main
+    from nbody_jax.bench.sweep import main as sweep_main
     rc = sweep_main(["--sizes", "64", "--dims", "2", "--accuracy", "on",
                      "--tiers", "a", "--results-dir", str(tmp_path),
                      "--run-id", "chunk1", "--warmup", "0"])
@@ -150,7 +150,7 @@ def test_sweep_chunked_cli(tmp_path):
 
 
 def test_profiling_trace_noop_and_dir(tmp_path):
-    from nbody_tpu.utils.profiling import trace
+    from nbody_jax.utils.profiling import trace
     with trace(None):
         pass
     with trace(str(tmp_path)):

@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from nbody_tpu import (
+from nbody_jax import (
     GravityConfig,
     brute_force_direct,
     euler_step,
@@ -80,7 +80,7 @@ def test_potential_energy_blocked_matches_dense(rng_key):
     tools/simulate_1m.py) must agree with the dense version, including
     when N is not a multiple of the block (zero-mass padding rows all sit
     at the origin and must be excluded by the coincident-pair guard)."""
-    from nbody_tpu.ops.brute_force import potential_energy_blocked
+    from nbody_jax.ops.brute_force import potential_energy_blocked
     cfg = GravityConfig(G=1.0, softening=0.05)
     sys = plummer_system(rng_key, 333, dim=3)
     dense = float(potential_energy(sys.positions, sys.masses, cfg))
@@ -94,10 +94,10 @@ def test_leapfrog_carried_matches_chained(rng_key):
     """simulate()'s carried-acceleration KDK (one force eval/step) must
     reproduce the chained two-eval leapfrog_step trajectory exactly —
     the recomputed a0 of step k+1 IS step k's a1."""
-    from nbody_tpu.config import GravityConfig
-    from nbody_tpu.integrators import leapfrog_step, simulate
-    from nbody_tpu.ops.brute_force import brute_force_direct
-    from nbody_tpu.state import random_system
+    from nbody_jax.config import GravityConfig
+    from nbody_jax.integrators import leapfrog_step, simulate
+    from nbody_jax.ops.brute_force import brute_force_direct
+    from nbody_jax.state import random_system
     sys_ = random_system(rng_key, 256, dim=3, dtype=jnp.float64)
     cfg = GravityConfig(G=1.0, softening=0.1)
     fn = lambda p, m: brute_force_direct(p, m, cfg)

@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nbody_tpu.ops import keys as K
+from nbody_jax.ops import keys as K
 
 
 def full_grid(bits, dim):
@@ -64,7 +64,7 @@ def test_morton_spatial_ordering():
 
 def test_sort_bodies(rng_key):
     import jax
-    from nbody_tpu import random_system
+    from nbody_jax import random_system
     sys = random_system(rng_key, 100, dim=3)
     k = K.hilbert_key(sys.positions)
     order, ks, pos, vel, mass = K.sort_bodies_by_key(

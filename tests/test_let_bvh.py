@@ -9,12 +9,12 @@ holds only at theta=0 (every node opened ⇒ exact pair sum).
 import jax.numpy as jnp
 import numpy as np
 
-from nbody_tpu import GravityConfig, random_system
-from nbody_tpu.models import plummer_sphere
-from nbody_tpu.ops.brute_force import brute_force_direct
-from nbody_tpu.parallel.let_bvh import let_bvh
-from nbody_tpu.parallel.mesh import make_mesh
-from nbody_tpu.utils.accuracy import scale_normalized_error
+from nbody_jax import GravityConfig, random_system
+from nbody_jax.models import plummer_sphere
+from nbody_jax.ops.brute_force import brute_force_direct
+from nbody_jax.parallel.let_bvh import let_bvh
+from nbody_jax.parallel.mesh import make_mesh
+from nbody_jax.utils.accuracy import scale_normalized_error
 
 import pytest
 
@@ -68,12 +68,26 @@ def test_let_bvh_clustered_plummer(rng_key):
 
 
 def test_let_bvh_overflow_poisons(rng_key):
-    # Absurdly small near capacity must poison with NaN, never truncate.
+    # Absurdly small near capacity must poison with NaN, never truncate,
+    # when escalation is off.
     sys = random_system(rng_key, 700, dim=2, dtype=jnp.float64)
     cfg = GravityConfig()
     out = let_bvh(sys.positions, sys.masses, cfg, mesh=make_mesh(),
-                  theta=0.0, near_cap=8, frontier_width=2048)
+                  theta=0.0, near_cap=8, frontier_width=2048,
+                  max_escalations=0)
     assert not bool(jnp.all(jnp.isfinite(out)))
+
+
+def test_let_bvh_overflow_escalates(rng_key):
+    # The same undersized capacities, with escalation on: the re-run at
+    # raised capacities gives the exact theta=0 sum.
+    sys = random_system(rng_key, 700, dim=2, dtype=jnp.float64)
+    cfg = GravityConfig()
+    want = brute_force_direct(sys.positions, sys.masses, cfg)
+    got = let_bvh(sys.positions, sys.masses, cfg, mesh=make_mesh(),
+                  theta=0.0, near_cap=8, frontier_width=16)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               rtol=1e-7, atol=1e-30)
 
 
 def test_let_bvh_bucket_overflow_poisons(rng_key):

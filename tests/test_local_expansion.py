@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nbody_tpu.ops.grid_tree import (_point_mass_accel, _quad_cell_accel,
+from nbody_jax.ops.grid_tree import (_point_mass_accel, _quad_cell_accel,
                                      _quad_pairs)
-from nbody_tpu.ops.local_expansion import (eval_local, local_coeffs,
+from nbody_jax.ops.local_expansion import (eval_local, local_coeffs,
                                            _h_triples, num_coeffs)
 
 
@@ -116,7 +116,7 @@ def test_coeffs_match_jacfwd_softened(dim):
 def test_bvh_local_softened_matches_point(rng_key):
     """With softening > 0 the BVH local path must still agree with the
     per-body walk (regression for the dropped-softening review finding)."""
-    from nbody_tpu.ops.bvh import bvh_forces
+    from nbody_jax.ops.bvh import bvh_forces
     sys = random_system(rng_key, 2048, dim=2, dtype=jnp.float64)
     # Softening at the scale of typical gated distances (domain ~2e7).
     cfg = GravityConfig(softening=2e5)
@@ -166,10 +166,10 @@ def test_num_coeffs():
 # End-to-end: the Barnes-Hut tiers with far_impl="local".
 # ---------------------------------------------------------------------------
 
-from nbody_tpu import GravityConfig, random_system  # noqa: E402
-from nbody_tpu.ops.brute_force import brute_force_direct  # noqa: E402
-from nbody_tpu.ops.grid_tree import barnes_hut_grid  # noqa: E402
-from nbody_tpu.utils.accuracy import (accuracy_percentage,  # noqa: E402
+from nbody_jax import GravityConfig, random_system  # noqa: E402
+from nbody_jax.ops.brute_force import brute_force_direct  # noqa: E402
+from nbody_jax.ops.grid_tree import barnes_hut_grid  # noqa: E402
+from nbody_jax.utils.accuracy import (accuracy_percentage,  # noqa: E402
                                       scale_normalized_error)
 
 
@@ -216,7 +216,7 @@ def test_bh_local_theta05(rng_key):
 def test_bvh_local_matches_point(rng_key, dim):
     """BVH far_impl='local' (group-center expansion for accepted nodes
     beyond the gate) stays within ~2× of the per-body walk's error."""
-    from nbody_tpu.ops.bvh import bvh_forces
+    from nbody_jax.ops.bvh import bvh_forces
     sys = random_system(rng_key, 4096, dim=dim, dtype=jnp.float64)
     cfg = GravityConfig()
     want = brute_force_direct(sys.positions, sys.masses, cfg)
@@ -232,7 +232,7 @@ def test_bvh_local_matches_point(rng_key, dim):
 def test_bvh_local_huge_gate_equals_point(rng_key):
     """With an unreachable gate no node is local-eligible: the local path
     must reproduce the per-body walk (regression guard on the mask split)."""
-    from nbody_tpu.ops.bvh import bvh_forces
+    from nbody_jax.ops.bvh import bvh_forces
     sys = random_system(rng_key, 2048, dim=2, dtype=jnp.float64)
     cfg = GravityConfig()
     f_point = bvh_forces(sys.positions, sys.masses, cfg, theta=0.25,
@@ -245,7 +245,7 @@ def test_bvh_local_huge_gate_equals_point(rng_key):
 
 def test_bvh_local_accuracy_percentage(rng_key):
     """Reference per-component metric: BVH local far field ≥ 99% in f32."""
-    from nbody_tpu.ops.bvh import bvh_forces
+    from nbody_jax.ops.bvh import bvh_forces
     sys = random_system(rng_key, 8192, dim=2, dtype=jnp.float32)
     cfg = GravityConfig()
     want = brute_force_direct(sys.positions, sys.masses, cfg)
@@ -257,8 +257,8 @@ def test_bvh_local_accuracy_percentage(rng_key):
 def test_let_bh_local_matches_single_device(rng_key):
     """LET (body-sharded) far_impl='local' == single-chip local path on the
     8-device CPU mesh (identical trees, same level gating and centers)."""
-    from nbody_tpu.parallel.let_tree import let_barnes_hut
-    from nbody_tpu.parallel.mesh import make_mesh
+    from nbody_jax.parallel.let_tree import let_barnes_hut
+    from nbody_jax.parallel.mesh import make_mesh
     sys = random_system(rng_key, 1500, dim=2, dtype=jnp.float64)
     cfg = GravityConfig()
     L = 5  # deep enough that levels 2..4 are local-eligible at k=3
@@ -274,7 +274,7 @@ def test_let_bh_local_matches_single_device(rng_key):
 
 def test_bh_sparse_local(rng_key):
     """The sparse (clustered-input) grid path accepts far_impl='local'."""
-    from nbody_tpu.ops.sparse_grid import barnes_hut_sparse
+    from nbody_jax.ops.sparse_grid import barnes_hut_sparse
     sys = random_system(rng_key, 2048, dim=2, dtype=jnp.float64)
     cfg = GravityConfig()
     want = brute_force_direct(sys.positions, sys.masses, cfg)
@@ -287,7 +287,7 @@ def test_bh_sparse_local(rng_key):
 def test_order3_k_matches_jacfwd():
     """Packed K (∂³a, order-3 term) == triple autodiff of the direct sum."""
     import itertools
-    from nbody_tpu.ops.local_expansion import _k_quads
+    from nbody_jax.ops.local_expansion import _k_quads
     dim = 3
     center, com, mass, _ = _random_cells(dim, K=6, seed=77)
     center = center.astype(jnp.float64)
@@ -314,7 +314,7 @@ def test_order3_k_matches_jacfwd():
 def test_shift_local_exact(dim):
     """L2L re-centering is an exact polynomial identity:
     eval(ρ − δ, shift(coeffs, δ)) == eval(ρ, coeffs) to f64 roundoff."""
-    from nbody_tpu.ops.local_expansion import shift_local
+    from nbody_jax.ops.local_expansion import shift_local
     center, com, mass, _ = _random_cells(dim, K=5, seed=dim * 10 + 5)
     center = center.astype(jnp.float64)
     a0, Jp, Hp, Kp = local_coeffs(center[None, :],
@@ -337,11 +337,11 @@ def test_shift_local_exact(dim):
 def test_bh_leaf_level_far_accuracy(rng_key, far_impl):
     """Leaf-level shell-split far fields (per-body inner shells + order-3
     local beyond) hold the reference accuracy metric at θ=0.25 in 3D."""
-    from nbody_tpu.ops.brute_force import brute_force_direct
-    from nbody_tpu.ops.grid_tree import barnes_hut_grid
-    from nbody_tpu.state import random_system
-    from nbody_tpu.config import GravityConfig
-    from nbody_tpu.utils.accuracy import (accuracy_percentage,
+    from nbody_jax.ops.brute_force import brute_force_direct
+    from nbody_jax.ops.grid_tree import barnes_hut_grid
+    from nbody_jax.state import random_system
+    from nbody_jax.config import GravityConfig
+    from nbody_jax.utils.accuracy import (accuracy_percentage,
                                           scale_normalized_error)
     sys = random_system(rng_key, 8192, dim=3, dtype=jnp.float32)
     cfg = GravityConfig()
@@ -356,11 +356,11 @@ def test_bh_leaf_level_far_accuracy(rng_key, far_impl):
 def test_bh_hier_matches_local_class_error(rng_key, dim):
     """far_impl='hier' error stays within ~2× of the per-leaf 'local' mode
     (same gated Taylor ratios; only the expansion centers differ)."""
-    from nbody_tpu.ops.brute_force import brute_force_direct
-    from nbody_tpu.ops.grid_tree import barnes_hut_grid
-    from nbody_tpu.state import random_system
-    from nbody_tpu.config import GravityConfig
-    from nbody_tpu.utils.accuracy import scale_normalized_error
+    from nbody_jax.ops.brute_force import brute_force_direct
+    from nbody_jax.ops.grid_tree import barnes_hut_grid
+    from nbody_jax.state import random_system
+    from nbody_jax.config import GravityConfig
+    from nbody_jax.utils.accuracy import scale_normalized_error
     sys = random_system(rng_key, 4096, dim=dim, dtype=jnp.float64)
     cfg = GravityConfig()
     want = brute_force_direct(sys.positions, sys.masses, cfg)
@@ -377,9 +377,9 @@ def test_hier_chunked_sweep_matches_whole_level(rng_key):
     """The lax.map parent-chunked downward sweep (OOM guard for huge
     levels — the 46 GB tiled leaf-level gather at N=5e6 3D) is
     bit-identical to the whole-level sweep."""
-    from nbody_tpu.ops.grid_tree import build_grid_tree
-    from nbody_tpu.ops.hier_far import hier_far_coeffs
-    from nbody_tpu.state import random_system
+    from nbody_jax.ops.grid_tree import build_grid_tree
+    from nbody_jax.ops.hier_far import hier_far_coeffs
+    from nbody_jax.state import random_system
     sys = random_system(rng_key, 4096, dim=3, dtype=jnp.float32)
     tree = build_grid_tree(sys.positions, sys.masses, 4, 64, quad=True)
     whole = hier_far_coeffs(tree, k=3)
@@ -399,10 +399,10 @@ def test_hier_gather_defer_matches_pack(rng_key, dim):
     3D HBM-OOM fix: no [G, md·(D+1)] sweep outputs) agrees with the
     sweep-side pack tensors — same cells, same quad physics, different
     gather site, so only f32 reassociation noise separates them."""
-    from nbody_tpu.ops.grid_tree import (build_grid_tree,
+    from nbody_jax.ops.grid_tree import (build_grid_tree,
                                          grid_tree_accel_sorted)
-    from nbody_tpu.ops.hier_far import hier_far_coeffs
-    from nbody_tpu.state import random_system
+    from nbody_jax.ops.hier_far import hier_far_coeffs
+    from nbody_jax.state import random_system
     sys_ = random_system(rng_key, 4096, dim=dim, dtype=jnp.float32)
     tree = build_grid_tree(sys_.positions, sys_.masses, 4,
                            _cap_for(sys_.positions, 4), quad=True)
@@ -420,7 +420,7 @@ def test_hier_gather_defer_matches_pack(rng_key, dim):
 
 
 def _cap_for(positions, leaf_level):
-    from nbody_tpu.ops.grid_tree import compute_capacity_cached
+    from nbody_jax.ops.grid_tree import compute_capacity_cached
     return compute_capacity_cached(positions, leaf_level)
 
 
@@ -428,11 +428,11 @@ def test_hier_wide_ring_no_double_count(rng_key):
     """k ≥ 4 in 2D: every cell within Chebyshev k is NEAR — the hier far
     field must not re-count shells < k+1 (the c_min clamp; unclamped this
     was a 2.6e-2 error vs 4e-15 for far_impl='local')."""
-    from nbody_tpu.ops.brute_force import brute_force_direct
-    from nbody_tpu.ops.grid_tree import barnes_hut_grid
-    from nbody_tpu.state import random_system
-    from nbody_tpu.config import GravityConfig
-    from nbody_tpu.utils.accuracy import scale_normalized_error
+    from nbody_jax.ops.brute_force import brute_force_direct
+    from nbody_jax.ops.grid_tree import barnes_hut_grid
+    from nbody_jax.state import random_system
+    from nbody_jax.config import GravityConfig
+    from nbody_jax.utils.accuracy import scale_normalized_error
     sys_ = random_system(rng_key, 1000, dim=2, dtype=jnp.float64)
     cfg = GravityConfig()
     want = brute_force_direct(sys_.positions, sys_.masses, cfg)
@@ -442,13 +442,12 @@ def test_hier_wide_ring_no_double_count(rng_key):
 
 
 def test_bvh_far_impl_resolver():
-    """far_impl=None resolves by N (measured default: "point" below 2e6,
-    "local" at the big cells — artifacts/bvh_far_impl_bigN.json), and the
-    registry's hyper record states the same resolved value so committed
-    run artifacts carry the true configuration."""
-    from nbody_tpu.ops.bvh import resolve_bvh_far_impl
-    from nbody_tpu.bench.registry import all_methods
-    from nbody_tpu.config import GravityConfig, TreeConfig
+    """far_impl=None resolves by N ("point" below 5e6, "local" at the big
+    cells), and the registry's hyper record states the same resolved value
+    so run records carry the true configuration."""
+    from nbody_jax.ops.bvh import resolve_bvh_far_impl
+    from nbody_jax.bench.registry import all_methods
+    from nbody_jax.config import GravityConfig, TreeConfig
     assert resolve_bvh_far_impl(100_000) == "point"
     assert resolve_bvh_far_impl(2_000_000) == "point"
     assert resolve_bvh_far_impl(5_000_000) == "local"

@@ -6,8 +6,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from nbody_tpu import brute_force_direct, simulate
-from nbody_tpu.models import (
+from nbody_jax import brute_force_direct, simulate
+from nbody_jax.models import (
     plummer_sphere,
     solar_system,
     spiral_galaxy,

@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from nbody_tpu import GravityConfig, random_system
-from nbody_tpu.ops.brute_force import brute_force_direct
-from nbody_tpu.ops import keys as K
-from nbody_tpu.utils import native
+from nbody_jax import GravityConfig, random_system
+from nbody_jax.ops.brute_force import brute_force_direct
+from nbody_jax.ops import keys as K
+from nbody_jax.utils import native
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native oracle not built (make -C native)")

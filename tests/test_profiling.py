@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 
-from nbody_tpu import random_system
-from nbody_tpu.utils.profiling import PhaseTimer, phase_breakdown_fmm
+from nbody_jax import random_system
+from nbody_jax.utils.profiling import PhaseTimer, phase_breakdown_fmm
 
 
 def test_phase_timer_basic():

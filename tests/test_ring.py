@@ -7,10 +7,10 @@ import pytest
 
 pytestmark = pytest.mark.slow
 
-from nbody_tpu import GravityConfig, random_system
-from nbody_tpu.ops.brute_force import brute_force_direct
-from nbody_tpu.parallel.mesh import make_mesh
-from nbody_tpu.parallel.ring import ring_brute_force
+from nbody_jax import GravityConfig, random_system
+from nbody_jax.ops.brute_force import brute_force_direct
+from nbody_jax.parallel.mesh import make_mesh
+from nbody_jax.parallel.ring import ring_brute_force
 
 
 def test_eight_devices_available():
@@ -64,7 +64,7 @@ def test_ring_symmetric_with_softening(rng_key):
 def test_accel_rows_sym_consistency(rng_key):
     """The two outputs of the Newton-3 tile are the transposed one-sided
     evaluations of the same pair set (f64)."""
-    from nbody_tpu.ops.brute_force import _accel_rows, _accel_rows_sym
+    from nbody_jax.ops.brute_force import _accel_rows, _accel_rows_sym
     sys = random_system(rng_key, 96, dim=3, dtype=jnp.float64)
     t_pos, s_pos = sys.positions[:32], sys.positions[32:]
     t_m, s_m = sys.masses[:32], sys.masses[32:]
@@ -77,19 +77,19 @@ def test_accel_rows_sym_consistency(rng_key):
         rtol=1e-12)
 
 
-def test_pallas_sym_tile_interpret(rng_key):
-    """The Pallas Newton-3 rectangular tile (interpret mode) matches the
-    jnp symmetric engine on both outputs, incl. padded shapes."""
-    from nbody_tpu.ops.brute_force import _accel_rows_sym
-    from nbody_tpu.ops.pallas_brute import pallas_sym_tile
+def test_blocked_sym_engine_matches_tile(rng_key):
+    """The blocked Newton-3 engine (the ring's default off the GPU) matches
+    the one-tile sweep on both outputs, incl. padded target blocks."""
+    from nbody_jax.ops.brute_force import (_accel_rows_sym,
+                                           accel_rows_sym_blocked)
     sys = random_system(rng_key, 300, dim=2, dtype=jnp.float32)
     t_pos, s_pos = sys.positions[:100], sys.positions[100:]
     t_m, s_m = sys.masses[:100], sys.masses[100:]
     want_t, want_s = _accel_rows_sym(t_pos, t_m, s_pos, s_m, 0.0)
-    got_t, got_s = pallas_sym_tile(t_pos, t_m, s_pos, s_m, softening=0.0,
-                                   block_t=64, s_sub=128, interpret=True)
+    got_t, got_s = accel_rows_sym_blocked(t_pos, t_m, s_pos, s_m, 0.0,
+                                          block=32)
     # Scale-based atol: near-cancelling components make per-element rtol
-    # harsh under f32 sub-tile reordering (same argument as the project's
+    # harsh under f32 block reordering (same argument as the project's
     # scale_normalized_error metric).
     for got, want in ((got_t, want_t), (got_s, want_s)):
         scale = float(np.abs(np.asarray(want)).max())
@@ -97,41 +97,19 @@ def test_pallas_sym_tile_interpret(rng_key):
                                    rtol=2e-5, atol=2e-5 * scale)
 
 
-def test_pallas_sym_tile_chunked_matches_unchunked(rng_key):
-    """Forcing the VMEM-safety row chunking (chunk < rows, both axes,
-    non-divisible tails) must not change either output: the r4 sweep's
-    BruteForce_Pallas 2e6/5e6 3D compile OOMed scoped VMEM at ~1M-row
-    tiles, fixed by splitting oversized tiles into chunked sub-calls."""
-    from nbody_tpu.ops.brute_force import _accel_rows_sym
-    from nbody_tpu.ops.pallas_brute import pallas_sym_tile
-    sys = random_system(rng_key, 300, dim=3, dtype=jnp.float32)
-    t_pos, s_pos = sys.positions[:130], sys.positions[130:]
-    t_m, s_m = sys.masses[:130], sys.masses[130:]
-    want_t, want_s = _accel_rows_sym(t_pos, t_m, s_pos, s_m, 0.0)
-    got_t, got_s = pallas_sym_tile(t_pos, t_m, s_pos, s_m, softening=0.0,
-                                   block_t=32, s_sub=64, interpret=True,
-                                   chunk=64)
-    for got, want in ((got_t, want_t), (got_s, want_s)):
-        scale = float(np.abs(np.asarray(want)).max())
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                   rtol=2e-5, atol=2e-5 * scale)
-
-
-def test_ring_symmetric_with_pallas_sym_engine(rng_key):
-    """End-to-end symmetric ring with the Pallas sym tile (interpret) as
-    the engine on the 8-device CPU mesh."""
+def test_ring_symmetric_with_small_blocks(rng_key):
+    """End-to-end symmetric ring whose blocked engine splits each shard
+    into several target blocks, on the 8-device CPU mesh."""
     import functools
-    from nbody_tpu.ops.pallas_brute import pallas_sym_tile
+    from nbody_jax.ops.brute_force import (accel_rows_blocked,
+                                           accel_rows_sym_blocked)
     sys = random_system(rng_key, 256, dim=3, dtype=jnp.float32)
     cfg = GravityConfig()
     want = brute_force_direct(sys.positions, sys.masses, cfg)
-    eng = functools.partial(pallas_sym_tile, block_t=16, s_sub=128,
-                            interpret=True)
     got = ring_brute_force(
-        sys.positions, sys.masses, cfg, mesh=make_mesh(),
-        symmetric=True,
-        sym_accel=lambda tp, tm, sp, sm, soft: eng(tp, tm, sp, sm,
-                                                   softening=soft))
+        sys.positions, sys.masses, cfg, mesh=make_mesh(), symmetric=True,
+        local_accel=functools.partial(accel_rows_blocked, block=8),
+        sym_accel=functools.partial(accel_rows_sym_blocked, block=8))
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=1e-4, atol=1e-25)
 
@@ -144,76 +122,17 @@ def test_ring_output_stays_sharded(rng_key):
 
 
 def test_ring_with_pallas_local(rng_key):
-    """ppermute ring with the Pallas rectangular tile as the local engine
-    (interpret mode on the CPU mesh)."""
+    """ppermute ring with the Pallas kernel as the local engine (interpret
+    mode on the CPU mesh) — the one-sided ring the GPU runs."""
     import functools
-    from nbody_tpu.ops.pallas_brute import pairwise_accel_pallas
+    from nbody_jax.ops.pallas_brute import pairwise_accel_pallas
     sys = random_system(rng_key, 256, dim=3, dtype=jnp.float32)
     cfg = GravityConfig()
     want = brute_force_direct(sys.positions, sys.masses, cfg)
-    local = functools.partial(pairwise_accel_pallas, block_t=8,
-                              block_s=128, interpret=True)
+    local = functools.partial(pairwise_accel_pallas, block_t=16,
+                              block_s=16, interpret=True)
     got = ring_brute_force(
         sys.positions, sys.masses, cfg, mesh=make_mesh(),
         local_accel=lambda t, s, m, soft: local(t, s, m, softening=soft))
-    from nbody_tpu.utils.accuracy import scale_normalized_error
+    from nbody_jax.utils.accuracy import scale_normalized_error
     assert float(scale_normalized_error(got, want)) < 1e-4
-
-
-@pytest.mark.parametrize("n,budget", [(300, 1 << 40), (300, 128 * 512),
-                                      (520, 128 * 256)])
-def test_ring_segmented_matches_direct(rng_key, n, budget):
-    """Host-driven watchdog-bounded ring (segmented sweeps inside each
-    ring step) covers every pair exactly once — tiny pair budgets force
-    nseg > 1 so the chunk-interleave reassembly is exercised."""
-    from nbody_tpu.parallel.ring import ring_all_pairs_segmented
-    sys = random_system(rng_key, n, dim=2, dtype=jnp.float64)
-    cfg = GravityConfig()
-    want = brute_force_direct(sys.positions, sys.masses, cfg)
-    got = ring_all_pairs_segmented(sys.positions, sys.masses, cfg,
-                                   mesh=make_mesh(), pair_budget=budget)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=1e-8)
-
-
-def test_ring_segmented_odd_even_meshes(rng_key):
-    """Odd P (no masked half-step) and even P (masked s=P/2) both cover
-    every unordered shard pair exactly once in the segmented driver."""
-    from nbody_tpu.parallel.ring import ring_all_pairs_segmented
-    sys = random_system(rng_key, 256, dim=3, dtype=jnp.float64)
-    cfg = GravityConfig()
-    want = brute_force_direct(sys.positions, sys.masses, cfg)
-    for k in (2, 3, 4):
-        got = ring_all_pairs_segmented(
-            sys.positions, sys.masses, cfg,
-            mesh=make_mesh(jax.devices()[:k]), pair_budget=128 * 256)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                   rtol=1e-8)
-
-
-def test_ring_segmented_4e6_shapes_pair_coverage(rng_key):
-    """The v5e-8 target shape (N=4e6, P=8 — VERDICT r4 item 8) runs the
-    full segmented-ring PLUMBING on the CPU mesh with a linear-cost fake
-    engine: acc_t sums source masses, part_s sums target masses, so each
-    body's accumulated value equals the total mass iff every unordered
-    shard pair (and the self block) is counted exactly once — any miss,
-    double count, or mis-rotated return partial shifts it."""
-    from nbody_tpu.parallel.ring import ring_all_pairs_segmented
-    n = 4_000_000
-    pos = jnp.zeros((n, 2), jnp.float32)
-    mass = jnp.ones((n,), jnp.float32)
-    cfg = GravityConfig(G=1.0, softening=0.0)
-
-    def fake_local(tp, sp, sm, soft):
-        return jnp.broadcast_to(jnp.sum(sm), tp.shape[:1] + (2,))
-
-    def fake_sym(tp, tm, sp, sm, soft):
-        return (jnp.broadcast_to(jnp.sum(sm), tp.shape[:1] + (2,)),
-                jnp.broadcast_to(jnp.sum(tm), sp.shape[:1] + (2,)))
-
-    # pair_budget forces nseg = 4 on the 500K-row shards.
-    got = ring_all_pairs_segmented(
-        pos, mass, cfg, mesh=make_mesh(), local_accel=fake_local,
-        sym_accel=fake_sym, pair_budget=(n // 8) * (n // 8) // 4)
-    np.testing.assert_allclose(np.asarray(got[:: n // 997]), float(n),
-                               rtol=1e-6)

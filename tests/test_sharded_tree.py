@@ -4,10 +4,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from nbody_tpu import GravityConfig, random_system
-from nbody_tpu.ops.grid_tree import barnes_hut_grid
-from nbody_tpu.parallel.mesh import make_mesh
-from nbody_tpu.parallel.sharded_tree import barnes_hut_sharded
+from nbody_jax import GravityConfig, random_system
+from nbody_jax.ops.grid_tree import barnes_hut_grid
+from nbody_jax.parallel.mesh import make_mesh
+from nbody_jax.parallel.sharded_tree import barnes_hut_sharded
 
 import pytest
 
@@ -37,8 +37,8 @@ def test_sharded_bh_small_tree(rng_key):
                                  mesh=make_mesh(), theta=0.5)
     # Different leaf levels change the approximation slightly; compare to
     # a direct sum instead for correctness at this scale.
-    from nbody_tpu.ops.brute_force import brute_force_direct
-    from nbody_tpu.utils.accuracy import scale_normalized_error
+    from nbody_jax.ops.brute_force import brute_force_direct
+    from nbody_jax.utils.accuracy import scale_normalized_error
     want = brute_force_direct(sys.positions, sys.masses, cfg)
     assert float(scale_normalized_error(sharded, want)) < 2e-2
     assert np.all(np.isfinite(np.asarray(sharded)))
@@ -56,8 +56,8 @@ def test_sharded_bh_two_device_mesh(rng_key):
 
 
 def test_sharded_fmm_matches_single_device(rng_key, dim):
-    from nbody_tpu.ops.fmm import fmm_forces
-    from nbody_tpu.parallel.sharded_tree import fmm_sharded
+    from nbody_jax.ops.fmm import fmm_forces
+    from nbody_jax.parallel.sharded_tree import fmm_sharded
     sys = random_system(rng_key, 400, dim=dim, dtype=jnp.float64)
     cfg = GravityConfig()
     single = fmm_forces(sys.positions, sys.masses, cfg, order=4,
@@ -70,9 +70,9 @@ def test_sharded_fmm_matches_single_device(rng_key, dim):
 
 def test_sharded_fmm_gate(rng_key):
     """Sharded FMM still passes the 1e-4 fidelity gate."""
-    from nbody_tpu.ops.brute_force import brute_force_direct
-    from nbody_tpu.parallel.sharded_tree import fmm_sharded
-    from nbody_tpu.utils.accuracy import scale_normalized_error
+    from nbody_jax.ops.brute_force import brute_force_direct
+    from nbody_jax.parallel.sharded_tree import fmm_sharded
+    from nbody_jax.utils.accuracy import scale_normalized_error
     sys = random_system(rng_key, 1000, dim=2, dtype=jnp.float64)
     cfg = GravityConfig()
     want = brute_force_direct(sys.positions, sys.masses, cfg)
@@ -82,8 +82,8 @@ def test_sharded_fmm_gate(rng_key):
 
 
 def test_sharded_bvh_matches_single_device(rng_key):
-    from nbody_tpu.ops.bvh import bvh_forces
-    from nbody_tpu.parallel.sharded_tree import bvh_sharded
+    from nbody_jax.ops.bvh import bvh_forces
+    from nbody_jax.parallel.sharded_tree import bvh_sharded
     sys = random_system(rng_key, 500, dim=3, dtype=jnp.float64)
     cfg = GravityConfig()
     single = bvh_forces(sys.positions, sys.masses, cfg, theta=0.25,

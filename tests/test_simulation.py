@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nbody_tpu.models import plummer_sphere, two_body_circular_orbit
-from nbody_tpu.simulation import Simulation, available_methods
+from nbody_jax.models import plummer_sphere, two_body_circular_orbit
+from nbody_jax.simulation import Simulation, available_methods
 
 
 def test_available_methods():

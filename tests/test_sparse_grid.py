@@ -13,14 +13,14 @@ import pytest
 
 pytestmark = pytest.mark.slow
 
-from nbody_tpu import GravityConfig, random_system
-from nbody_tpu.ops.brute_force import brute_force_direct
-from nbody_tpu.ops.grid_tree import (CLUSTERED_CAPACITY_LIMIT,
+from nbody_jax import GravityConfig, random_system
+from nbody_jax.ops.brute_force import brute_force_direct
+from nbody_jax.ops.grid_tree import (CLUSTERED_CAPACITY_LIMIT,
                                      auto_leaf_level, barnes_hut_grid,
                                      chunk_table, compute_capacity)
-from nbody_tpu.ops.sparse_grid import (barnes_hut_sparse,
+from nbody_jax.ops.sparse_grid import (barnes_hut_sparse,
                                        sparse_grid_stats)
-from nbody_tpu.utils.accuracy import scale_normalized_error
+from nbody_jax.utils.accuracy import scale_normalized_error
 
 
 def _clustered(key, n, frac=0.6, dim=3):
@@ -114,7 +114,7 @@ def test_fmm_sparse_matches_dense_uniform(rng_key, dim):
     """Chunked P2M/P2P must reproduce the dense FMM (same tree, same
     expansions; only the near-field batching and the P2M partial-sum
     order differ)."""
-    from nbody_tpu.ops.fmm import fmm_forces
+    from nbody_jax.ops.fmm import fmm_forces
     sys = random_system(rng_key, 3000, dim=dim, dtype=jnp.float64)
     cfg = GravityConfig(G=1.0, softening=1e-6)
     dense = fmm_forces(sys.positions, sys.masses, cfg, order=4,
@@ -126,7 +126,7 @@ def test_fmm_sparse_matches_dense_uniform(rng_key, dim):
 
 def test_fmm_sparse_clustered_vs_brute(rng_key):
     """FMM on the input class the dense grid refuses."""
-    from nbody_tpu.ops.fmm import fmm_forces
+    from nbody_jax.ops.fmm import fmm_forces
     pos, mass = _clustered(rng_key, 8000)
     cfg = GravityConfig(G=1.0, softening=1e-4)
     want = brute_force_direct(pos, mass, cfg)
@@ -152,11 +152,11 @@ def test_sparse_mono_vs_quad(rng_key):
 
 
 def test_sparse_segmented_matches_unsegmented(rng_key):
-    """The watchdog-bounding segment split of the sparse evaluation (the
-    clustered-1e6 worker-crash fix) is bit-identical to one dispatch."""
-    from nbody_tpu.config import GravityConfig
-    from nbody_tpu.ops.sparse_grid import barnes_hut_sparse
-    from nbody_tpu.models import plummer_sphere
+    """The bounded-dispatch segment split of the sparse evaluation is
+    bit-identical to one dispatch."""
+    from nbody_jax.config import GravityConfig
+    from nbody_jax.ops.sparse_grid import barnes_hut_sparse
+    from nbody_jax.models import plummer_sphere
     system, cfg = plummer_sphere(rng_key, 6000, dim=3, dtype=jnp.float32)
     base = barnes_hut_sparse(system.positions, system.masses, cfg,
                              theta=0.25, num_segments=1)

@@ -2,8 +2,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from nbody_tpu import System, random_system, plummer_system
-from nbody_tpu.config import MASS_RANGE, POSITION_RANGE, VELOCITY_RANGE
+from nbody_jax import System, random_system, plummer_system
+from nbody_jax.config import MASS_RANGE, POSITION_RANGE, VELOCITY_RANGE
 
 
 def test_shapes_and_dim(rng_key, dim):

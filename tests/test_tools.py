@@ -1,19 +1,16 @@
 """Unit tests for the measurement/hygiene tooling in tools/.
 
-These are plain-Python tools (no backend), but they guard committed
-artifacts the judge audits — a parser bug here silently corrupts the
-scoreboard, which is exactly what rounds 2-3 were dinged for.
+These are plain-Python helpers (no backend); a parser bug here would
+silently corrupt the collective census the scaling tool reports.
 """
 
 import os
 import sys
 
-import pytest
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 
 from multichip_scaling import collective_census, _shape_bytes  # noqa: E402
-from prune_superseded import plan  # noqa: E402
 
 
 def test_shape_bytes_scalar_tuple_layout():
@@ -38,45 +35,3 @@ def test_collective_census_counts_ops(tmp_path):
     assert census["collective-permute"]["count"] == 1
     assert census["all-reduce"]["out_bytes"] == 2 * 64 * 4
     assert "add" not in census
-
-
-def _write_run(d, name, rows):
-    path = os.path.join(d, name)
-    with open(path, "w") as f:
-        f.write("Method,Bodies,Dimension,Time(s)\n")
-        for r in rows:
-            f.write(",".join(str(x) for x in r) + "\n")
-    return path
-
-
-@pytest.fixture
-def results_dir(tmp_path):
-    d = str(tmp_path)
-    # r2 valid, superseded by a valid r4 row for the same cell.
-    _write_run(d, "run_r2fp1_BVH_Radix_N_1000_2D.csv",
-               [("BVH_Radix", 1000, 2, 0.5)])
-    _write_run(d, "run_r4fp1_BVH_Radix_N_1000_2D.csv",
-               [("BVH_Radix", 1000, 2, 0.2)])
-    # r3 zero-byte: retired unconditionally.
-    open(os.path.join(d, "run_r3fp1_BVH_Radix_N_2000_2D.csv"), "w").close()
-    # r2 valid with NO newer replacement: kept.
-    _write_run(d, "run_r2fp1_FMM_Chebyshev_N_1000_2D.csv",
-               [("FMM_Chebyshev", 1000, 2, 0.1)])
-    # r4 failed (-1 sentinel) must NOT supersede a valid r2 row.
-    _write_run(d, "run_r2fp1_BarnesHut_Grid_N_1000_3D.csv",
-               [("BarnesHut_Grid", 1000, 3, 0.3)])
-    _write_run(d, "run_r4fp1_BarnesHut_Grid_N_1000_3D.csv",
-               [("BarnesHut_Grid", 1000, 3, -1.0)])
-    # Different accuracy flavor ('a' vs 'f') is a different cell.
-    _write_run(d, "run_r2ap1_BVH_Radix_N_1000_2D.csv",
-               [("BVH_Radix", 1000, 2, 0.6)])
-    return d
-
-
-def test_prune_plan_newest_generation_wins(results_dir):
-    retire = {os.path.basename(p): why for p, why in plan(results_dir)}
-    assert retire == {
-        "run_r2fp1_BVH_Radix_N_1000_2D.csv": "superseded by r4",
-        "run_r3fp1_BVH_Radix_N_2000_2D.csv": "no valid rows",
-        "run_r4fp1_BarnesHut_Grid_N_1000_3D.csv": "no valid rows",
-    }

@@ -1,11 +1,11 @@
-"""BVH tier timing on the live chip: far_impl and traversal-knob sweeps.
+"""BVH tier timing on the GPU: far_impl and traversal-knob sweeps.
 
-Times the full fused bvh_forces dispatch (build + traversal + unsort),
-cached-execution (second run) with a checksum materialization, for each
+Times the full bvh_forces call (build + traversal + unsort, escalation
+settled by a warm-up call) with ``jax.block_until_ready``, for each
 requested (N, dim) at theta, over a grid of far_impl × group_size ×
-leaf_size × batch. Companion to tools/tree_phase_bench.py for the
-ROADMAP 0b decision (flip the far_impl default if "local" wins) and for
-tuning the 2D losing rows (451 ms @1e5 vs the reference Parlay 256 ms).
+leaf_size × batch; a checksum of the forces is printed beside each time.
+Companion to tools/tree_phase_bench.py for re-measuring the BVH defaults
+on the GPU (ROADMAP).
 
 Usage: python tools/bvh_bench.py [--cases 100000:2,200000:2,100000:3]
                                  [--theta 0.25] [--impls point,local]
@@ -23,8 +23,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import jax
 import jax.numpy as jnp
 
-import nbody_tpu as nb
-from nbody_tpu.ops.bvh import bvh_forces
+import nbody_jax as nb
+from nbody_jax.ops.bvh import bvh_forces
 
 
 def main():
@@ -54,17 +54,17 @@ def main():
                         for fw in ints(args.frontier_widths, None):
                             for nc in ints(args.near_caps, None):
                                 def run():
-                                    f = bvh_forces(
+                                    return jax.block_until_ready(bvh_forces(
                                         system.positions, system.masses,
                                         cfg, theta=args.theta,
                                         far_impl=impl, group_size=gs,
                                         leaf_size=ls, batch=b,
-                                        frontier_width=fw, near_cap=nc)
-                                    return float(jnp.sum(jnp.abs(f)))
+                                        frontier_width=fw, near_cap=nc))
                                 run()  # compile+warmup (settles escalation)
                                 t0 = time.perf_counter()
-                                chk = run()
+                                f = run()
                                 dt = time.perf_counter() - t0
+                                chk = float(jnp.sum(jnp.abs(f)))
                                 print(
                                     f"N={n:>8} {dim}D {impl:<6} "
                                     f"G={gs or '-':>4} S={ls:>3} b={b:>4} "

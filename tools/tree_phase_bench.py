@@ -1,9 +1,9 @@
-"""Phase-level timing of the tree tiers on the live chip.
+"""Phase-level timing of the tree tiers on the current backend.
 
 Times, separately: grid-tree build (quantize/sort/aggregate/slots), BH far
 field only, BH near field only, BH full, and the FMM phases via its
-``_debug_skip`` ablation knob. All timings are cached-execution (second run)
-with a checksum materialization.
+``_debug_skip`` ablation knob. All timings are cached-execution (second run),
+each ended by fetching a checksum of its result.
 
 Usage: python tools/tree_phase_bench.py [--n 1048576] [--dim 2] [--fmm]
 """
@@ -21,11 +21,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import jax
 import jax.numpy as jnp
 
-import nbody_tpu as nb
-from nbody_tpu.ops.grid_tree import (
+import nbody_jax as nb
+from nbody_jax.ops.grid_tree import (
     auto_leaf_level, build_grid_tree, compute_capacity,
     grid_tree_accel_sorted, theta_to_ring)
-from nbody_tpu.ops.fmm import fmm_accel_sorted
+from nbody_jax.ops.fmm import fmm_accel_sorted
 
 
 def timed(label, fn):
